@@ -1,8 +1,8 @@
 // IC(0) incomplete Cholesky — native sequential factorization.
 //
 // Same algorithm and retry semantics as the Python implementation in
-// tpusparse/precond/ic0.py (behavioral parity with the reference's
-// IncompleteCholesky, /root/reference/work_2025/cg/
+// sparsela/precond/ic0.py (behavioral parity with the reference's
+// IncompleteCholesky, work_2025/cg/
 // incomplete_cholesky_decomp.hpp:85-239): up-looking factorization on
 // the lower-triangle pattern with sorted-merge partial dot products,
 // diagonal stored last per row, and up to `max_attempts` diagonal-shift

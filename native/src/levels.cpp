@@ -1,7 +1,7 @@
 // Dependency-level computation for level-scheduled triangular solves
 // (precond/trisolve.py LevelScheduledSolver). The reference solves
 // triangular systems row-sequentially (incomplete_cholesky_decomp.hpp:
-// 246-345); the TPU re-design groups independent rows into levels.
+// 246-345); the device solves group independent rows into levels.
 //
 // level[i] = 1 + max(level[j] for strict dependencies j of row i), an
 // O(nnz) sequential walk in topological (row) order — exactly the loop

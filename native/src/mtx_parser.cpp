@@ -1,7 +1,7 @@
 // Fast Matrix Market parser — native data-loading path.
 //
 // The reference's file I/O hot spot is a per-nonzero strtol/strtod loop
-// (CooMatrix::InitMarket, /root/reference/sparse_matrix.h:211-380; the
+// (CooMatrix::InitMarket, sparse_matrix.h:211-380; the
 // comment there notes strtol/strtod is 2x faster than sscanf). This
 // implementation keeps that idea and adds:
 //   * one mmap-free bulk read + in-place pointer scanning,
@@ -10,7 +10,7 @@
 //   * symmetric / skew-symmetric expansion and pattern defaults with
 //     the same semantics as the reference and the Python parser.
 //
-// C API (ctypes): see tpusparse/utils/native.py.
+// C API (ctypes): see sparsela/utils/native.py.
 
 #include <cctype>
 #include <cstdint>

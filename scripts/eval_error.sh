@@ -3,9 +3,9 @@
 # Usage: eval_error.sh <mtx_file_or_--lap2d> [value]
 set -u
 SRC=${1:---lap2d}; VAL=${2:-32}
-python -m tpusparse.bench.run multicg "$SRC" "$VAL" --fp64 --num_vectors 8
+python -m sparsela.bench.run multicg "$SRC" "$VAL" --fp64 --num_vectors 8
 python - <<PY
-from tpusparse.analysis.plots import plot_errors
+from sparsela.analysis.plots import plot_errors
 import glob, os
 csvs = {os.path.basename(p).split("_")[-2]: p
         for p in glob.glob("data/error_data/*_errors.csv")}

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # CG GFLOPS harness over a matrix directory (parity:
-# /root/reference/eval_gflops.sh:50-70 — per-matrix CSV rows into
+# eval_gflops.sh:50-70 — per-matrix CSV rows into
 # data/gflops/). Usage: eval_gflops.sh <mtx-dir> [num_vectors]
 set -euo pipefail
 DIR="${1:-download/final_mtx}"
@@ -12,7 +12,7 @@ echo "matrix,kernel,L,ms,gflops,iters" > "$CSV"
 for f in "$DIR"/*.mtx; do
   [ -e "$f" ] || { echo "no .mtx files in $DIR"; exit 1; }
   echo "== $f"
-  python -m tpusparse.bench.run cg --mtx "$f" --num_vectors "$L" \
+  python -m sparsela.bench.run cg --mtx "$f" --num_vectors "$L" \
     --quiet >> "$CSV" || echo "# $f failed" >> "$CSV"
 done
 echo "wrote $CSV"
@@ -20,7 +20,7 @@ python - "$CSV" "$OUT/cg_gflops_pivot.csv" <<'EOF'
 import csv
 import sys
 
-from tpusparse.analysis.plots import plot_gflops_pivot
+from sparsela.analysis.plots import plot_gflops_pivot
 
 rows = []
 with open(sys.argv[1]) as f:

@@ -1,20 +1,19 @@
 #!/bin/bash
-# Real-collection battery (round 4): correctness half on any host,
-# timed strategy rows when a TPU is attached.
+# Real-collection battery: every route on reconstructed SuiteSparse
+# entries (io/realmats.py), each row golden-checked against the host
+# oracle. Runs on any backend; on a GPU the timings are device numbers.
 # Reference analogue: eval_csrmv.sh over the downloaded UFL corpus.
+# Usage: eval_real.sh [out_dir]
 set -e
 cd "$(dirname "$0")/.."
-OUT=data/real_results
+OUT=${1:-data/real_results}
 mkdir -p "$OUT"
-python scripts/r4_real_battery.py
-# timed rows (TPU): the bigger entries, AUTO + merge + nonzero_split
-if [ "${RUN_TPU_ROWS:-0}" = "1" ]; then
-  CSV="$OUT/real_spmv_rows.csv"
-  echo "matrix,kind,rows,nnz,ms,gflops,gbps,check,semantics" > "$CSV"
-  for m in Trefethen_2000 Trefethen_20000 mycielskian11 mycielskian12 \
-           mycielskian13 gr_30_30; do
-    python -m tpusparse.bench.run spmv --real "$m" --fp32 \
-      --strategy auto,merge,nonzero_split --quiet >> "$CSV" || true
-  done
-  echo "wrote $CSV"
-fi
+CSV="$OUT/real_spmv_rows.csv"
+: > "$CSV"
+for m in Trefethen_2000 Trefethen_20000 mycielskian11 mycielskian12 \
+         mycielskian13 gr_30_30 bibd_81_3; do
+  python -m sparsela.bench.run spmv --real "$m" --fp32 \
+    --strategy auto,cusparse,reference --quiet >> "$CSV" || \
+    echo "# $m failed" >> "$CSV"
+done
+echo "wrote $CSV"

@@ -1,5 +1,5 @@
 #!/bin/bash
-# Single-RHS CG harness (parity: /root/reference/eval_simple_gflops.sh:
+# Single-RHS CG harness (parity: eval_simple_gflops.sh:
 # 40-66 — per-matrix GFLOPS CSV into data/simple_gflops/).
 # Usage: eval_simple_gflops.sh <mtx_dir> [timing_iters] [out_dir]
 set -u
@@ -13,11 +13,11 @@ for m in "$DIR"/*.mtx; do
   csv="$OUT/${name}_gflops.csv"
   echo "matrix,kernel,L,ms,gflops,iters" > "$csv"
   if [ "$ITERS" -gt 0 ]; then
-    python -m tpusparse.bench.run cg --mtx "$m" \
+    python -m sparsela.bench.run cg --mtx "$m" \
       --timing_iters "$ITERS" --quiet >> "$csv" \
       || echo "# $m failed" >> "$csv"
   else
-    python -m tpusparse.bench.run cg --mtx "$m" --quiet >> "$csv" \
+    python -m sparsela.bench.run cg --mtx "$m" --quiet >> "$csv" \
       || echo "# $m failed" >> "$csv"
   fi
   echo "wrote $csv"

@@ -7,6 +7,6 @@ OUT=${2:-data/spmv_sweep.csv}
 mkdir -p "$(dirname "$OUT")"
 echo "matrix,kernel,rows,nnz,ms,gflops,gbs,check" > "$OUT"
 for m in "$DIR"/*.mtx; do
-  python -m tpusparse.bench.run spmv --mtx "$m" --fp32 --quiet >> "$OUT"
+  python -m sparsela.bench.run spmv --mtx "$m" --fp32 --quiet >> "$OUT"
 done
 echo "wrote $OUT"

@@ -4,6 +4,6 @@
 set -u
 SRC=${1:---lap3d}; VAL=${2:-32}; OUT=${3:-data/vectors_sweep.csv}
 mkdir -p "$(dirname "$OUT")"
-python -m tpusparse.bench.run sweep "$SRC" "$VAL" --fp32 \
+python -m sparsela.bench.run sweep "$SRC" "$VAL" --fp32 \
   --vector_counts 1,2,4,8,16,32,64,128,256,512,1024 > "$OUT"
 echo "wrote $OUT"

@@ -1,15 +1,16 @@
 """bf16-plane mixed precision: variable-coefficient stencils, the
-bf16-plane stream plan, and the two mixed-precision solvers.
+bf16-plane DIA plan (bf16 storage, f32 arithmetic), and the two
+mixed-precision solvers.
 
-Round-5 feature (VERDICT r4 item 1 / ROADMAP N1): variable-coefficient
-diagonal operators — the SuiteSparse FD/FEM reality the reference's
-constant-coefficient grids idealize (``InitGrid2d/3d``,
-``sparse_matrix.h:458-623``) — are plane-stream-bound; bf16 value
-planes halve the dominant HBM term. The operator is perturbed ~4e-3,
-so correctness rests on full-precision outer residuals: inner/outer
-refinement (``cg_solve_refined_f32``) and the production
-residual-replacement CG (``cg_solve_bf16``, restart-free, 1.06-1.10x
-iteration cost measured vs refinement's 1.33-1.48x).
+Variable-coefficient diagonal operators — the SuiteSparse FD/FEM
+reality the reference's constant-coefficient grids idealize
+(``InitGrid2d/3d``, ``sparse_matrix.h:458-623``) — are
+plane-stream-bound; bf16 value planes halve the dominant memory term.
+The operator is perturbed ~4e-3, so correctness rests on
+full-precision outer residuals: inner/outer refinement
+(``cg_solve_refined_f32``) and the residual-replacement CG
+(``cg_solve_bf16``, restart-free, 1.06-1.10x iterations in a numpy
+study vs refinement's 1.33-1.48x).
 """
 
 import numpy as np
@@ -17,19 +18,19 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpusparse.io.generators import (
+from sparsela.io.generators import (
     make_laplacian_grid3d,
     make_variable_stencil,
 )
-from tpusparse.ops.spmv import (
+from sparsela.ops.spmv import (
     plan_dia_bf16,
     plan_kind,
     plan_matrix,
     plan_semantics,
     spmv,
 )
-from tpusparse.solvers.cg import cg_solve, cg_solve_multi
-from tpusparse.solvers.refine import (
+from sparsela.solvers.cg import cg_solve, cg_solve_multi
+from sparsela.solvers.refine import (
     cg_solve_bf16,
     cg_solve_multi_refined_f32,
     cg_solve_refined_f32,
@@ -45,7 +46,7 @@ def var27():
 
 
 def test_variable_stencil_structure():
-    from tpusparse.formats.dia import (
+    from sparsela.formats.dia import (
         partition_dia,
         plane_constants,
         select_diagonals,
@@ -92,7 +93,7 @@ def test_plan_dia_bf16_tags_and_accuracy(var27):
 
 
 def test_plan_dia_bf16_rejects_non_diagonal():
-    from tpusparse.formats.coo import CooMatrix
+    from sparsela.formats.coo import CooMatrix
 
     # pure scatter: every diagonal ~1 entry, none selectable
     n, m = 3000, 2000
@@ -106,17 +107,60 @@ def test_plan_dia_bf16_rejects_non_diagonal():
 
 
 def test_bf16_masked_conflict_raises():
-    from tpusparse.formats.dia import partition_dia, select_diagonals
-    from tpusparse.kernels.dia_stream import to_device_dia_stream
+    from sparsela.formats.dia import (
+        partition_dia,
+        select_diagonals,
+        to_device_dia,
+    )
 
     csr = make_laplacian_grid3d(8, dtype=np.float32).to_csr()
     dia, _ = partition_dia(csr, select_diagonals(csr))
-    with pytest.raises(ValueError, match="bitmask plan is exact"):
-        to_device_dia_stream(dia, masked=True,
-                             plane_dtype=jnp.bfloat16)
+    with pytest.raises(ValueError, match="value-plane form only"):
+        to_device_dia(dia, dtype=np.float32, masked=True,
+                      plane_dtype=jnp.bfloat16)
     # constant-coefficient + bf16 request: value planes, not masked
-    D = to_device_dia_stream(dia, plane_dtype=jnp.bfloat16)
-    assert D.mask_b is None and D.data_b.dtype == jnp.bfloat16
+    D = to_device_dia(dia, dtype=np.float32, plane_dtype=jnp.bfloat16)
+    assert not D.masked and D.data.dtype == jnp.bfloat16
+    assert D.dtype == np.float32  # arithmetic stays f32
+
+
+def test_bf16_planes_f32_arithmetic():
+    """bf16 planes, f32 arithmetic: the product equals an f32 product
+    with the bf16-ROUNDED planes (x is not rounded to bf16), and a
+    constant-coefficient request warns that the masked plan is
+    cheaper."""
+    import scipy.sparse as sp
+
+    csr = make_variable_stencil(8, dims=3, full=True, seed=4,
+                                shift=1.0, dtype=np.float32).to_csr()
+    A16 = plan_dia_bf16(csr)
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal(csr.num_cols).astype(np.float32)
+    y = np.asarray(spmv(A16, jnp.asarray(x)))
+    assert y.dtype == np.float32
+    S = csr.to_scipy()
+    S16 = sp.csr_matrix((S.data.astype(jnp.bfloat16).astype(np.float64),
+                         S.indices, S.indptr), shape=S.shape)
+    ref = S16 @ x.astype(np.float64)
+    assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-6
+    lap = make_laplacian_grid3d(6, dtype=np.float32).to_csr()
+    with pytest.warns(UserWarning, match="constant-coefficient"):
+        plan_dia_bf16(lap)
+
+
+def test_cg_bf16_bake_parity(var27):
+    """The baked solve (plans closed over the jitted solver) and the
+    operand-dispatch solve run the same arithmetic: identical
+    iteration counts and solutions."""
+    rng = np.random.default_rng(17)
+    A16 = plan_dia_bf16(var27)
+    A32 = plan_matrix(var27, strategy="dia", dtype=np.float32)
+    b = jnp.asarray(rng.standard_normal(var27.num_rows).astype(np.float32))
+    rb = cg_solve_bf16(A16, A32, b, tolerance=1e-5, bake=True)
+    ru = cg_solve_bf16(A16, A32, b, tolerance=1e-5, bake=False)
+    assert int(rb.iterations) == int(ru.iterations)
+    np.testing.assert_allclose(np.asarray(rb.x), np.asarray(ru.x),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_refined_f32_single_and_multi(var27):
@@ -141,8 +185,8 @@ def test_refined_f32_single_and_multi(var27):
 def test_cg_bf16_replacement_parity(var27):
     """The production replacement solver: verified convergence at a
     bounded iteration premium on the mild-conditioning fixture (the
-    measured design point: ~1.1x vs plain f32 CG; refinement's
-    restarts cost 1.33-1.48x — RESULTS round 5)."""
+    design point: ~1.1x vs plain f32 CG; refinement's restarts cost
+    1.33-1.48x in the numpy study)."""
     rng = np.random.default_rng(13)
     A16 = plan_dia_bf16(var27)
     A32 = plan_matrix(var27, strategy="dia", dtype=np.float32)
@@ -166,7 +210,7 @@ def test_cg_bf16_hard_case_honest():
     drifts, the verified outer guard restarts — and still converges
     with honest accounting (the documented limit of the scheme).
     Local rng: this contract is draw-sensitive, and the session-scoped
-    fixture made it order-dependent (the round-4 flake class)."""
+    fixture made it order-dependent."""
     rng = np.random.default_rng(14)
     csr = make_variable_stencil(10, dims=3, full=True, seed=2,
                                 shift=1e-2, dtype=np.float32).to_csr()

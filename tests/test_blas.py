@@ -1,10 +1,4 @@
-"""BLAS-1 helper tests: the compensated double-float f64 reduction
-(ops.blas.df_sum) and the solver iteration-pinning guard.
-
-Why df_sum exists: XLA-TPU's *emulated* f64 reduction measured ~219 us
-for one 32k-element dot on v5e (vs ~2 us fp32), making f64 dots ~82%
-of an fp64 CG iteration; the two-f32 pairwise path is ~60x faster at
-accuracy better than the sequential f64 sum (see ops/blas.py)."""
+"""BLAS-1 helper tests and the solver iteration-pinning guard."""
 
 import math
 
@@ -12,61 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpusparse.io import generators
-from tpusparse.ops import blas
-from tpusparse.solvers.cg import cg_solve
-
-
-@pytest.mark.parametrize("n", [1, 2, 3, 1000, 32768, 100_001])
-def test_df_sum_accuracy(rng, n):
-    v = rng.standard_normal(n)
-    exact = math.fsum(v.tolist())
-    got = float(blas.df_sum(jnp.asarray(v)))
-    scale = math.fsum(np.abs(v).tolist())
-    assert abs(got - exact) / scale < 1e-13
-
-
-def test_df_sum_beats_naive_f64_on_ill_conditioned(rng):
-    # alternating large/small cancellation: naive f64 loses digits,
-    # the compensated pairwise sum must stay within ~1e-13 relative
-    big = rng.standard_normal(5000) * 1e8
-    v = np.concatenate([big, -big, rng.standard_normal(5000)])
-    rng.shuffle(v)
-    exact = math.fsum(v.tolist())
-    got = float(blas.df_sum(jnp.asarray(v)))
-    assert abs(got - exact) / math.fsum(np.abs(v).tolist()) < 1e-13
-
-
-def test_df_sum_axis_and_shapes(rng):
-    # NOTE: rng is session-scoped — the draw depends on test order, so
-    # tolerances must scale by sum(|v|), not the (possibly tiny) sum
-    v = rng.standard_normal((37, 5))  # odd leading dim exercises padding
-    got = np.asarray(blas.df_sum(jnp.asarray(v), axis=0))
-    want = v.sum(axis=0)
-    assert np.all(np.abs(got - want) <= 1e-13 * np.abs(v).sum(axis=0))
-    got1 = np.asarray(blas.df_sum(jnp.asarray(v), axis=1))
-    assert np.all(
-        np.abs(got1 - v.sum(axis=1)) <= 1e-13 * np.abs(v).sum(axis=1))
-    assert got.dtype == np.float64
-    empty = blas.df_sum(jnp.zeros((0, 4), dtype=jnp.float64))
-    assert empty.shape == (4,) and float(jnp.sum(empty)) == 0.0
-
-
-def test_reduce_sum_dtype_routing(rng):
-    a32 = jnp.asarray(rng.standard_normal((64, 3)).astype(np.float32))
-    out32 = blas._reduce_sum(a32, axis=0)
-    assert out32.dtype == jnp.float32
-    # multi-lane f64 stays on the native (strict-IEEE) sum — the
-    # measured gate (see _reduce_sum): df only pays off cross-lane
-    a64 = jnp.asarray(rng.standard_normal((64, 3)))
-    out64 = blas._reduce_sum(a64, axis=0)
-    assert out64.dtype == jnp.float64
-    np.testing.assert_allclose(
-        np.asarray(out64), np.asarray(a64).sum(axis=0), rtol=1e-13)
-    # scalar-producing f64 takes the compensated path: bitwise equal
-    # to df_sum, not necessarily to the sequential native sum
-    v = jnp.asarray(rng.standard_normal(4097))
-    assert float(blas._reduce_sum(v, axis=0)) == float(blas.df_sum(v))
+from sparsela.io import generators
+from sparsela.ops import blas
+from sparsela.solvers.cg import cg_solve
 
 
 def test_dot_helpers_match_numpy(rng):
@@ -80,52 +22,11 @@ def test_dot_helpers_match_numpy(rng):
         a[:, 0] @ b[:, 0], rtol=1e-12)
 
 
-def test_strict_flag_restores_native_sum(rng):
-    v = jnp.asarray(rng.standard_normal(257))
-    old = blas.F64_COMPENSATED_DOT
-    try:
-        blas.F64_COMPENSATED_DOT = False
-        strict = float(blas._reduce_sum(v, axis=0))
-        assert strict == float(jnp.sum(v))
-    finally:
-        blas.F64_COMPENSATED_DOT = old
-
-
-def test_df_dot_convergence_parity():
-    """fp64 CG under df dots must converge like strict-IEEE dots:
-    same iteration count (+-2) and a residual meeting the tolerance
-    (on-chip session-7 check measured exactly equal: 74 vs 74 iters,
-    identical residual, at tol=1e-10 on lap3d-16)."""
-    import jax
-
-    csr = generators.make_laplacian_grid3d(12).to_csr()
-    A = csr.to_device()
-    rng = np.random.default_rng(1)
-    b = jnp.asarray(rng.standard_normal(csr.num_rows))
-    outs = {}
-    old = blas.F64_COMPENSATED_DOT
-    try:
-        for flag in (False, True):
-            blas.F64_COMPENSATED_DOT = flag
-            from tpusparse.solvers.cg import _cg_solve_impl
-
-            f = jax.jit(lambda A_, b_: _cg_solve_impl(
-                A_, b_, 2000, 1e-10, "auto", None, None, False))
-            r = f(A, b)
-            outs[flag] = (int(r.iterations), float(r.residual))
-    finally:
-        blas.F64_COMPENSATED_DOT = old
-    (i0, r0), (i1, r1) = outs[False], outs[True]
-    assert abs(i0 - i1) <= 2
-    assert r0 < 1e-10 and r1 < 1e-10
-
-
 def test_cg_tolerance_zero_pins_iteration_count():
     """tolerance=0 must run exactly max_iters (the --device_rate
     contract): long past fp32 convergence the residual underflows to
     exactly zero and an unguarded beta = rs_new/0 NaN-ed the state,
-    exiting the while_loop at a data-dependent iteration (measured:
-    iter 285 on lap3d-32 — which silently broke the slope)."""
+    exiting the while_loop at a data-dependent iteration."""
     csr = generators.make_laplacian_grid2d(16, dtype=np.float32).to_csr()
     rng = np.random.default_rng(0)
     b = jnp.asarray(rng.standard_normal(csr.num_rows).astype(np.float32))

@@ -1,14 +1,13 @@
-"""Format tests: COO/CSR/BCSR/MergeTiles roundtrips vs scipy oracles."""
+"""Format tests: COO/CSR/BCSR roundtrips vs scipy oracles."""
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from tpusparse.formats.bcsr import BcsrMatrix
-from tpusparse.formats.coo import CooMatrix
-from tpusparse.formats.csr import CsrMatrix
-from tpusparse.formats.tiles import build_merge_tiles, tiles_to_dense
-from tpusparse.io import generators
+from sparsela.formats.bcsr import BcsrMatrix
+from sparsela.formats.coo import CooMatrix
+from sparsela.formats.csr import CsrMatrix
+from sparsela.io import generators
 
 
 def random_coo(rng, m=50, n=40, nnz=300, dtype=np.float64):
@@ -95,61 +94,3 @@ class TestBcsr:
         csr = generators.make_grid2d(16).to_csr()
         bcsr = BcsrMatrix.from_csr(csr, 2, 2)
         assert 0 < bcsr.fill_ratio <= 1
-
-
-class TestMergeTiles:
-    @pytest.mark.parametrize(
-        "gen",
-        [
-            lambda: generators.make_grid2d(20).to_csr(),
-            lambda: generators.make_laplacian_grid2d(16).to_csr(),
-            lambda: generators.make_wheel(500).to_csr(),
-            lambda: generators.make_dense(40, 40).to_csr(),
-        ],
-    )
-    def test_lossless(self, gen):
-        csr = gen()
-        tiles = build_merge_tiles(csr, tile_nnz=256, row_window=256,
-                                  col_window=512)
-        np.testing.assert_allclose(tiles_to_dense(tiles), csr.to_dense())
-
-    def test_random_matrix_is_total(self, rng):
-        # uniform random cols exceed any single column window — the
-        # bucketed partition still covers every entry (occupancy drops,
-        # correctness doesn't)
-        coo = random_coo(rng, m=300, n=3000, nnz=2000)
-        csr = CsrMatrix.from_coo(coo, sum_dups=True)
-        tiles = build_merge_tiles(csr, tile_nnz=256, row_window=256,
-                                  col_window=256)
-        assert tiles.overflow_nnz == 0
-        np.testing.assert_allclose(tiles_to_dense(tiles), csr.to_dense())
-
-    def test_long_row_split(self, rng):
-        # one row with more nonzeros than a tile holds
-        n = 5000
-        cols = np.arange(n, dtype=np.int32)
-        coo = CooMatrix(3, n, np.zeros(n, np.int32), cols,
-                        np.ones(n))
-        csr = CsrMatrix.from_coo(coo)
-        tiles = build_merge_tiles(csr, tile_nnz=256, row_window=128,
-                                  col_window=1024)
-        assert tiles.ntiles >= n // 256
-        np.testing.assert_allclose(tiles_to_dense(tiles), csr.to_dense())
-
-    def test_occupancy_banded(self):
-        csr = generators.make_laplacian_grid2d(48).to_csr()
-        tiles = build_merge_tiles(csr, tile_nnz=1024, row_window=384,
-                                  col_window=2048)
-        assert tiles.overflow_fraction == 0.0
-        assert tiles.occupancy > 0.5
-
-
-def test_tiling_efficiency_and_choice():
-    from tpusparse.formats.tiles import choose_tiling, tiling_efficiency
-
-    csr = generators.make_laplacian_grid3d(10).to_csr()
-    est = tiling_efficiency(csr, 1024, 1024, 1024)
-    actual = build_merge_tiles(csr, 1024, 1024, 1024).occupancy
-    assert abs(est - actual) < 1e-9
-    wr, wc = choose_tiling(csr)
-    assert wr in (256, 384, 512, 1024) and wc in (1024, 2048, 4096, 8192)

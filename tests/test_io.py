@@ -5,8 +5,8 @@ import pytest
 import scipy.io as sio
 import scipy.sparse as sp
 
-from tpusparse.io.market import read_market, write_market
-from tpusparse.io import generators
+from sparsela.io.market import read_market, write_market
+from sparsela.io import generators
 
 
 def test_general_coordinate(tmp_path):

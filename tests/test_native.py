@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from tpusparse.utils import native
+from sparsela.utils import native
 
 pytestmark = pytest.mark.skipif(
-    not native.available(), reason="libtpusparse.so not built"
+    not native.available(), reason="libsparsela.so not built"
 )
 
 
 def test_native_mtx_matches_python(tmp_path):
-    from tpusparse.io.market import _read_market_stream
+    from sparsela.io.market import _read_market_stream
     import io
 
     text = (
@@ -54,8 +54,8 @@ def test_native_mtx_pattern_and_skew(tmp_path):
 @pytest.mark.slow
 def test_native_mtx_large_roundtrip(tmp_path):
     # big enough to hit the multi-threaded chunked path
-    from tpusparse.io import generators
-    from tpusparse.io.market import write_market, read_market
+    from sparsela.io import generators
+    from sparsela.io.market import write_market, read_market
 
     rng = np.random.default_rng(0)
     coo = generators.make_grid2d(100)  # 39k nnz
@@ -67,8 +67,8 @@ def test_native_mtx_large_roundtrip(tmp_path):
 
 
 def test_native_ic0_matches_python(rng):
-    from tpusparse.io import generators
-    from tpusparse.precond import ic0
+    from sparsela.io import generators
+    from sparsela.precond import ic0
 
     csr = generators.make_laplacian_grid2d(10).to_csr()
     L_native = native.ic0_factorize(csr)
@@ -84,18 +84,22 @@ def test_native_ic0_matches_python(rng):
     )
 
 
-def test_native_argsort_u64(rng):
-    keys = rng.integers(0, 2**50, 100000).astype(np.uint64)
-    order = native.argsort_u64(keys)
-    assert np.array_equal(keys[order], np.sort(keys))
+def test_native_coo_sort_order(rng):
+    """The native counting sort is the stable (row, col) lexsort."""
+    rows = rng.integers(0, 500, 20000).astype(np.int32)
+    cols = rng.integers(0, 800, 20000).astype(np.int32)
+    order = native.coo_sort_order(500, rows, cols)
+    np.testing.assert_array_equal(order, np.lexsort((cols, rows)))
+    # out-of-range rows are refused, not written past the buffer
+    assert native.coo_sort_order(10, rows, cols) is None
 
 
 def test_native_tri_levels_matches_fallback():
     """Native O(nnz) level walk == the numpy frontier fallback, lower
     and upper, on an IC(0) factor of a stencil."""
-    from tpusparse.io import generators
-    from tpusparse.precond import trisolve
-    from tpusparse.precond.ic0 import ic0_factorize
+    from sparsela.io import generators
+    from sparsela.precond import trisolve
+    from sparsela.precond.ic0 import ic0_factorize
 
     csr = generators.make_laplacian_grid2d(14).to_csr()
     Lf = ic0_factorize(csr)

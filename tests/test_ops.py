@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpusparse.formats.coo import CooMatrix
-from tpusparse.formats.csr import CsrMatrix
-from tpusparse.io import generators
-from tpusparse.ops import blas
-from tpusparse.ops import reference as ref
-from tpusparse.ops.spmv import spmv, spmm, SpmvStrategy
+from sparsela.formats.coo import CooMatrix
+from sparsela.formats.csr import CsrMatrix
+from sparsela.io import generators
+from sparsela.ops import blas
+from sparsela.ops import reference as ref
+from sparsela.ops.spmv import spmv, spmm, SpmvStrategy
 
 
 def cases():
@@ -73,70 +73,55 @@ def test_spmv_public_dispatch(rng):
 
 
 def test_strategy_aliases():
-    # reference driver kernel names map onto their TPU analogues
-    assert SpmvStrategy.parse("simple") == SpmvStrategy.ROW_SPLIT
-    # round 4: NONZERO_SPLIT is its own plan family (pure equal-nnz
-    # partition), no longer an alias of MERGE
-    assert (SpmvStrategy.parse("nonzero_split")
-            == SpmvStrategy.NONZERO_SPLIT)
-    assert SpmvStrategy.parse("merge") == SpmvStrategy.MERGE
-    # the vendor baseline is BCOO, not an alias of reference
-    assert SpmvStrategy.parse("mkl") == SpmvStrategy.BCOO
+    # the reference's vendor baseline (MKL) maps onto cuSPARSE
+    assert SpmvStrategy.parse("mkl") == SpmvStrategy.CUSPARSE
+    assert SpmvStrategy.parse("csr") == SpmvStrategy.CUSPARSE
+    assert SpmvStrategy.parse("hybrid") == SpmvStrategy.DIA
     assert SpmvStrategy.parse(SpmvStrategy.BSR) == SpmvStrategy.BSR
+    # reference decompositions and removed families raise with guidance
+    for name in ("simple", "merge", "nonzero_split", "row_split",
+                 "ell", "nmajor"):
+        with pytest.raises(ValueError, match="cusparse"):
+            SpmvStrategy.parse(name)
+    with pytest.raises(ValueError):
+        SpmvStrategy.parse("no_such_route")
 
 
 def test_plan_matrix_auto(rng):
-    from tpusparse.ops.spmv import plan_matrix
-    from tpusparse.kernels.ell_spmm import DeviceEll
-    from tpusparse.kernels.merge_spmv import DeviceTiles
+    import jax.experimental.sparse as jsparse
 
-    from tpusparse.ops.hybrid import HybridPlan
+    from sparsela.ops.hybrid import HybridPlan
+    from sparsela.ops.spmv import plan_matrix
 
-    # regular stencil -> pure DIA (entirely diagonal) for any L/dtype
+    # regular stencil -> pure masked DIA for any L/dtype
     csr = generators.make_laplacian_grid2d(16).to_csr()
-    A = plan_matrix(csr, dtype=np.float32, L=16)
-    assert isinstance(A, HybridPlan) and A.rest is None
-    A1 = plan_matrix(csr, dtype=np.float32, L=1)
-    assert isinstance(A1, HybridPlan) and A1.rest is None
-    # skewed wheel: ring diagonals peel to DIA, hub/spokes -> merge
-    wheel = generators.make_wheel(2000).to_csr()
-    A2 = plan_matrix(wheel, dtype=np.float32, L=16)
-    assert isinstance(A2, HybridPlan)
-    assert isinstance(A2.rest, DeviceTiles)
-    # fp64 stencil -> native-f64 DIA planes
+    for L in (1, 16):
+        A = plan_matrix(csr, dtype=np.float32, L=L)
+        assert isinstance(A, HybridPlan) and A.rest is None
+        assert A.dia.masked
+    # fp64 stencil -> IEEE f64 masked DIA
     A3 = plan_matrix(csr, dtype=np.float64)
-    assert isinstance(A3, HybridPlan) and A3.rest is None
-    assert A3.dia.data.dtype == np.float64
-    # the non-DIA fp64 single-RHS path routes to the double-float
-    # MERGE kernel (skew-insensitive, 21x the df-ELL kernel on R-MAT);
-    # fp64 multi-RHS keeps the lane-filling df gather-job kernel
-    from tpusparse.kernels.ell_df import DeviceEllDF
-    from tpusparse.kernels.merge_df import DfMergeTiles
-
-    A3b = plan_matrix(csr, dtype=np.float64, _allow_dia=False)
-    assert isinstance(A3b, DfMergeTiles)
-    A3c = plan_matrix(csr, dtype=np.float64, L=8, _allow_dia=False)
-    assert isinstance(A3c, DeviceEllDF)
-    # fp64 wheel: DIA ring peeled; the hub/spoke remainder rides the
-    # skew-insensitive df merge kernel
-    A4 = plan_matrix(wheel, dtype=np.float64)
-    assert isinstance(A4, HybridPlan)
-    assert A4.rest is not None
-    # multi-RHS non-DIA fp32 stencil path -> gather-job ELL
-    Ae = plan_matrix(csr, dtype=np.float32, L=16, _allow_dia=False)
-    assert isinstance(Ae, DeviceEll)
-    # pathological packing (one entry per 128-slot job) -> reference
-    from tpusparse.formats.coo import CooMatrix
+    assert isinstance(A3, HybridPlan) and A3.dia.dtype == np.float64
+    # skewed wheel: ring diagonals peel to DIA, hub/spokes -> cuSPARSE
+    wheel = generators.make_wheel(2000).to_csr()
+    for dt in (np.float32, np.float64):
+        A2 = plan_matrix(wheel, dtype=dt, L=16)
+        assert isinstance(A2, HybridPlan)
+        assert isinstance(A2.rest, jsparse.CSR)
+        assert A2.rest.dtype == dt
+    # no diagonal structure -> the general CSR route at any L/dtype
+    from sparsela.formats.coo import CooMatrix
 
     n = 40000
-    diagish = CooMatrix(
-        n, n, np.arange(n), (np.arange(n) * 131) % n,
-        np.ones(n),
-    )
-    # scattered fp64 single-RHS: the df merge kernel takes it (the old
-    # df-ELL occupancy fallback to reference no longer applies at L=1)
-    A5 = plan_matrix(CsrMatrix.from_coo(diagish), dtype=np.float64)
-    assert isinstance(A5, DfMergeTiles)
+    scatter = CsrMatrix.from_coo(CooMatrix(
+        n, n, np.arange(n), (np.arange(n) * 131) % n, np.ones(n)))
+    for dt in (np.float32, np.float64):
+        for L in (1, 8):
+            A5 = plan_matrix(scatter, dtype=dt, L=L)
+            assert isinstance(A5, jsparse.CSR) and A5.dtype == dt
+    # _allow_dia=False plans the remainder of a hybrid
+    Ae = plan_matrix(csr, dtype=np.float32, L=16, _allow_dia=False)
+    assert isinstance(Ae, jsparse.CSR)
 
 
 def test_empty_rows_produce_zeros():

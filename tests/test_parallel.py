@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpusparse.io import generators
-from tpusparse.parallel import sharded as sh
+from sparsela.io import generators
+from sparsela.parallel import sharded as sh
 
 
 @pytest.fixture(scope="module")
@@ -115,327 +115,3 @@ def test_cg_full_solve_sharded(mesh, rng):
     Xh = sh.from_padded_layout(np.asarray(X), A)
     err = np.linalg.norm(B - csr.to_scipy() @ Xh) / np.linalg.norm(B)
     assert err < 1e-8
-
-
-def test_spmv_sharded_pallas_tiles(mesh, rng):
-    """The flagship Pallas kernel running per shard under shard_map
-    (interpret mode on the virtual CPU mesh)."""
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_laplacian_grid2d(24, dtype=np.float64).to_csr()
-    csr = csr.astype(np.float32)
-    st = stm.shard_tiles(csr, mesh.devices.size)
-    std = stm.device_put_sharded_tiles(st, mesh)
-    x = rng.standard_normal(csr.num_cols).astype(np.float32)
-    y_pad = np.asarray(stm.spmv_sharded_tiles(std, jnp.asarray(x), mesh))
-
-    A = sh.shard_csr(csr, mesh.devices.size)
-    y = sh.from_padded_layout(y_pad, A)
-    expect = csr.to_scipy() @ x
-    scale = np.abs(expect).max() + 1.0
-    np.testing.assert_allclose(y / scale, expect / scale, atol=3e-5)
-
-
-def test_cg_sharded_pallas_tiles_converges(mesh, rng):
-    """Single-RHS CG with the Pallas merge kernel as the per-shard SpMV
-    (padded-layout column remap) converges to the true solution."""
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_laplacian_grid2d(12, dtype=np.float64).to_csr()
-    csr32 = csr.astype(np.float32)
-    D = mesh.devices.size
-    st = stm.shard_tiles(csr32, D, pad_layout_cols=True)
-    std = stm.device_put_sharded_tiles(st, mesh)
-
-    A = sh.shard_csr(csr32, D)
-    b = rng.standard_normal(csr.num_rows).astype(np.float32)
-    bp = jnp.asarray(sh.to_padded_layout(b, A))
-    X, R, Pd = jnp.zeros_like(bp), bp, bp
-    rs = jnp.sum(jnp.asarray(b) ** 2)
-
-    step = jax.jit(
-        lambda X, R, Pd, rs: stm.cg_step_sharded_tiles(
-            std, (X, R, Pd, rs), mesh
-        )
-    )
-    for _ in range(250):
-        X, R, Pd, rs = step(X, R, Pd, rs)
-        if float(rs) < 1e-10:
-            break
-    Xh = sh.from_padded_layout(np.asarray(X), A)
-    err = np.linalg.norm(b - csr.to_scipy() @ Xh) / np.linalg.norm(b)
-    assert err < 1e-4  # fp32 kernel path
-
-
-@pytest.mark.slow
-def test_cg_sharded_overlap_matches_plain(mesh, rng):
-    """The communication-overlapped CG step (diagonal block on the
-    local vector + off-diagonal block on the gathered vector) must
-    follow the same trajectory as the single-plan sharded step."""
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_laplacian_grid2d(12, dtype=np.float64).to_csr()
-    csr32 = csr.astype(np.float32)
-    D = mesh.devices.size
-    st = stm.shard_tiles(csr32, D, pad_layout_cols=True)
-    std = stm.device_put_sharded_tiles(st, mesh)
-    diag, offd = stm.shard_tiles_overlapped(csr32, D)
-    diag = stm.device_put_sharded_tiles(diag, mesh)
-    offd = stm.device_put_sharded_tiles(offd, mesh)
-
-    A = sh.shard_csr(csr32, D)
-    b = rng.standard_normal(csr.num_rows).astype(np.float32)
-    bp = jnp.asarray(sh.to_padded_layout(b, A))
-    s1 = (jnp.zeros_like(bp), bp, bp, jnp.sum(jnp.asarray(b) ** 2))
-    s2 = s1
-    for _ in range(5):
-        s1 = stm.cg_step_sharded_tiles(std, s1, mesh)
-        s2 = stm.cg_step_sharded_overlap(diag, offd, s2, mesh)
-    for a, c in zip(s1, s2):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(c), rtol=2e-4, atol=2e-4
-        )
-    assert float(s2[3]) < float(jnp.sum(jnp.asarray(b) ** 2))
-
-
-def test_cg_sharded_overlap_converges(mesh, rng):
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_laplacian_grid2d(12, dtype=np.float64).to_csr()
-    csr32 = csr.astype(np.float32)
-    D = mesh.devices.size
-    diag, offd = stm.shard_tiles_overlapped(csr32, D)
-    diag = stm.device_put_sharded_tiles(diag, mesh)
-    offd = stm.device_put_sharded_tiles(offd, mesh)
-
-    A = sh.shard_csr(csr32, D)
-    b = rng.standard_normal(csr.num_rows).astype(np.float32)
-    bp = jnp.asarray(sh.to_padded_layout(b, A))
-    X, R, Pd = jnp.zeros_like(bp), bp, bp
-    rs = jnp.sum(jnp.asarray(b) ** 2)
-    step = jax.jit(
-        lambda X, R, Pd, rs: stm.cg_step_sharded_overlap(
-            diag, offd, (X, R, Pd, rs), mesh
-        )
-    )
-    for _ in range(250):
-        X, R, Pd, rs = step(X, R, Pd, rs)
-        if float(rs) < 1e-10:
-            break
-    Xh = sh.from_padded_layout(np.asarray(X), A)
-    err = np.linalg.norm(b - csr32.to_scipy() @ Xh) / np.linalg.norm(b)
-    assert err < 1e-4
-
-
-@pytest.mark.slow
-def test_cg_sharded_tiles_multi_rhs(mesh, rng):
-    """Blocked multi-RHS CG with the in-kernel merge SpMM per shard:
-    trajectory matches the reference-op sharded step and converges."""
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_laplacian_grid2d(12, dtype=np.float64).to_csr()
-    csr32 = csr.astype(np.float32)
-    D = mesh.devices.size
-    L = 4
-    st = stm.shard_tiles(csr32, D, pad_layout_cols=True)
-    std = stm.device_put_sharded_tiles(st, mesh)
-    A = sh.shard_csr(csr32, D)
-    Ad = sh.device_put_sharded(A, mesh)
-
-    B = rng.standard_normal((csr.num_rows, L)).astype(np.float32)
-    Bp = jnp.asarray(sh.to_padded_layout(B, A))
-    rs0 = jnp.sum(jnp.asarray(B) ** 2, axis=0)
-    s_ref = (jnp.zeros_like(Bp), Bp, Bp, rs0)
-    s_ker = s_ref
-    for _ in range(5):
-        s_ref = sh.cg_step_sharded(Ad, s_ref, mesh)
-        s_ker = stm.cg_step_sharded_tiles_multi(std, s_ker, mesh)
-    for a, c in zip(s_ref, s_ker):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(c), rtol=3e-4, atol=3e-4
-        )
-
-    # run to convergence on the kernel path
-    X, R, Pd, rs = (jnp.zeros_like(Bp), Bp, Bp, rs0)
-    step = jax.jit(
-        lambda X, R, Pd, rs: stm.cg_step_sharded_tiles_multi(
-            std, (X, R, Pd, rs), mesh
-        )
-    )
-    for _ in range(300):
-        X, R, Pd, rs = step(X, R, Pd, rs)
-        if float(jnp.max(rs)) < 1e-9:
-            break
-    Xh = sh.from_padded_layout(np.asarray(X), A)
-    rel = np.linalg.norm(B - csr32.to_scipy() @ Xh, axis=0)
-    assert (rel / np.linalg.norm(B, axis=0)).max() < 1e-4
-
-
-def test_spmv_sharded_heterogeneous_spans(mesh, rng):
-    """Regression: shards with DIFFERENT max row spans. The span-axis
-    padding must broadcast each tile's final scalar end position;
-    replicating the last slice double-added the widest tiles' last-
-    slice row sums (verified 14.1 abs error vs 2e-6)."""
-    from tpusparse.formats.coo import CooMatrix
-    from tpusparse.formats.csr import CsrMatrix
-    from tpusparse.parallel import sharded_tiles as stm
-
-    n = 2048
-    # tridiagonal upper half (narrow spans) + one scattered nonzero per
-    # row in the lower half (a single tile spanning ~8 row slices)
-    ri = np.arange(1024)
-    rows = np.concatenate([ri, ri[:-1], ri[1:],
-                           np.arange(1024, n)])
-    cols = np.concatenate([ri, ri[1:], ri[:-1],
-                           (np.arange(1024, n) * 997) % n])
-    vals = rng.standard_normal(rows.size)
-    key = np.unique(rows.astype(np.int64) * n + cols)
-    rows, cols = key // n, key % n
-    vals = rng.standard_normal(rows.size).astype(np.float64)
-    csr = CsrMatrix.from_coo(
-        CooMatrix(n, n, rows, cols, vals)).astype(np.float32)
-
-    st = stm.shard_tiles(csr, mesh.devices.size)
-    # the point of the fixture: per-shard spans must differ
-    std = stm.device_put_sharded_tiles(st, mesh)
-    x = rng.standard_normal(n).astype(np.float32)
-    y_pad = np.asarray(stm.spmv_sharded_tiles(std, jnp.asarray(x), mesh))
-    A = sh.shard_csr(csr, mesh.devices.size)
-    y = sh.from_padded_layout(y_pad, A)
-    expect = csr.to_scipy() @ x
-    scale = np.abs(expect).max() + 1.0
-    np.testing.assert_allclose(y / scale, expect / scale, atol=3e-5)
-
-
-def test_spmm_sharded_tiles(mesh, rng):
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_laplacian_grid2d(24, dtype=np.float64).to_csr()
-    csr = csr.astype(np.float32)
-    st = stm.shard_tiles(csr, mesh.devices.size)
-    std = stm.device_put_sharded_tiles(st, mesh)
-    X = rng.standard_normal((csr.num_cols, 8)).astype(np.float32)
-    Y_pad = np.asarray(
-        stm.spmm_sharded_tiles(std, jnp.asarray(X), mesh))
-    A = sh.shard_csr(csr, mesh.devices.size)
-    Y = np.stack([sh.from_padded_layout(Y_pad[:, j], A)
-                  for j in range(8)], axis=1)
-    expect = csr.to_scipy() @ X
-    scale = np.abs(expect).max() + 1.0
-    np.testing.assert_allclose(Y / scale, expect / scale, atol=3e-5)
-
-
-@pytest.mark.slow
-def test_pcg_sharded_spai_converges_faster(mesh, rng):
-    """Distributed SPAI-PCG: both A and the explicit approximate
-    inverse are row-sharded merge plans; the preconditioner apply is
-    one more all_gather + per-shard SpMM. Must converge in fewer
-    iterations than plain sharded CG and reach the true solution."""
-    from tpusparse.parallel import sharded_tiles as stm
-    from tpusparse.precond.spai import spai_inverse
-
-    csr = generators.make_random_spd(
-        600, row_nnz=6, seed=11, bandwidth=40).to_csr()
-    csr32 = csr.astype(np.float32)
-    D = mesh.devices.size
-    M = spai_inverse(csr).astype(np.float32)
-    st = stm.shard_tiles(csr32, D, pad_layout_cols=True)
-    mt = stm.shard_tiles(M, D, pad_layout_cols=True)
-    std = stm.device_put_sharded_tiles(st, mesh)
-    mtd = stm.device_put_sharded_tiles(mt, mesh)
-
-    A = sh.shard_csr(csr32, D)
-    L = 4
-    B = rng.standard_normal((csr.num_rows, L)).astype(np.float32)
-    Bp = jnp.asarray(sh.to_padded_layout(B, A))
-    rs0 = jnp.sum(jnp.asarray(B) ** 2, axis=0)
-
-    # plain sharded CG iteration count
-    s = (jnp.zeros_like(Bp), Bp, Bp, rs0)
-    plain_step = jax.jit(
-        lambda X, R, Pd, rs: stm.cg_step_sharded_tiles_multi(
-            std, (X, R, Pd, rs), mesh))
-    plain_iters = 0
-    X, R, Pd, rs = s
-    for _ in range(400):
-        X, R, Pd, rs = plain_step(X, R, Pd, rs)
-        plain_iters += 1
-        if float(jnp.max(rs)) < 1e-8:
-            break
-
-    # SPAI-PCG
-    Z0 = jnp.asarray(sh.to_padded_layout(
-        np.asarray(M.to_scipy() @ B), A))
-    X, R, Z, Pd = jnp.zeros_like(Bp), Bp, Z0, Z0
-    rho = jnp.sum(np.asarray(B) * np.asarray(M.to_scipy() @ B), axis=0)
-    rho = jnp.asarray(rho.astype(np.float32))
-    step = jax.jit(
-        lambda X, R, Z, Pd, rho: stm.pcg_step_sharded_spai(
-            std, mtd, (X, R, Z, Pd, rho), mesh))
-    pcg_iters = 0
-    for _ in range(400):
-        X, R, Z, Pd, rho = step(X, R, Z, Pd, rho)
-        pcg_iters += 1
-        rr = float(jnp.max(jnp.sum(
-            sh.from_padded_layout(np.asarray(R), A) ** 2, axis=0)))
-        if rr < 1e-8:
-            break
-    Xh = sh.from_padded_layout(np.asarray(X), A)
-    rel = np.linalg.norm(B - csr32.to_scipy() @ Xh, axis=0)
-    assert (rel / np.linalg.norm(B, axis=0)).max() < 1e-3
-    assert pcg_iters < plain_iters
-
-
-def test_spmv_sharded_greedy_partition(mesh, rng):
-    """partition='auto' routes a power-law matrix's shards to the
-    greedy variable-width window partition (uniform family across the
-    mesh) and the sharded kernel stays exact; occupancy beats the
-    classic per-shard build."""
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_rmat(13, edge_factor=4, seed=2).to_csr()
-    csr = csr.astype(np.float32)
-    D = mesh.devices.size
-    st_auto = stm.shard_tiles(csr, D, partition="auto")
-    st_classic = stm.shard_tiles(csr, D)
-    assert st_auto.vals.size < st_classic.vals.size  # better packing
-    std = stm.device_put_sharded_tiles(st_auto, mesh)
-    x = rng.standard_normal(csr.num_cols).astype(np.float32)
-    y_pad = np.asarray(stm.spmv_sharded_tiles(std, jnp.asarray(x),
-                                              mesh))
-    A = sh.shard_csr(csr, D)
-    y = sh.from_padded_layout(y_pad, A)
-    expect = csr.to_scipy() @ x.astype(np.float64)
-    scale = np.abs(expect).max() + 1.0
-    np.testing.assert_allclose(y / scale, expect / scale, atol=3e-5)
-
-
-def test_cg_sharded_greedy_partition_converges(mesh, rng):
-    """Full sharded CG on the greedy partition (scattered SPD
-    fixture, padded-layout column remap)."""
-    from tpusparse.parallel import sharded_tiles as stm
-
-    csr = generators.make_rmat_spd(10, edge_factor=6, seed=2).to_csr()
-    csr32 = csr.astype(np.float32)
-    D = mesh.devices.size
-    st = stm.shard_tiles(csr32, D, pad_layout_cols=True,
-                         partition="auto")
-    std = stm.device_put_sharded_tiles(st, mesh)
-
-    A = sh.shard_csr(csr32, D)
-    b = rng.standard_normal(csr.num_rows).astype(np.float32)
-    bp = jnp.asarray(sh.to_padded_layout(b, A))
-    X, R, Pd = jnp.zeros_like(bp), bp, bp
-    rs = jnp.sum(jnp.asarray(b) ** 2)
-    step = jax.jit(
-        lambda X, R, Pd, rs: stm.cg_step_sharded_tiles(
-            std, (X, R, Pd, rs), mesh
-        )
-    )
-    for _ in range(400):
-        X, R, Pd, rs = step(X, R, Pd, rs)
-        if float(jnp.max(rs)) < 1e-16:
-            break
-    Xh = sh.from_padded_layout(np.asarray(X), A)
-    err = np.linalg.norm(b - csr.to_scipy() @ Xh) / np.linalg.norm(b)
-    assert err < 1e-4

@@ -2,8 +2,8 @@
 
 Parity bar: the sharded solvers must converge with the SAME iteration
 count (±1) as their single-device counterparts — the distributed
-recurrence is mathematically identical (psum dots, all_gather SpMM),
-only the data layout differs. Reference solvers:
+recurrence is mathematically identical (psum dots, all_gathered
+row-sharded CSR SpMM), only the data layout differs. Reference solvers:
 no_pretreatment.hpp:35-197, incomplete_cholesky.hpp:36-199,
 sparse_approximate_inverse.hpp:31-230.
 """
@@ -12,13 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpusparse.io import generators
-from tpusparse.parallel import sharded as sh
-from tpusparse.parallel import solvers as ps
-from tpusparse.parallel.sharded_tiles import (
-    device_put_sharded_tiles,
-    shard_tiles,
-)
+from sparsela.io import generators
+from sparsela.parallel import sharded as sh
+from sparsela.parallel import solvers as ps
 
 
 @pytest.fixture(scope="module")
@@ -31,13 +27,13 @@ def _spd_lap2d(width=20, dtype=np.float32):
 
 
 def _setup(csr, mesh):
-    st = shard_tiles(csr, mesh.devices.size, pad_layout_cols=True)
-    return device_put_sharded_tiles(st, mesh), st
+    st = sh.shard_csr(csr, mesh.devices.size)
+    return sh.device_put_sharded(st, mesh), st
 
 
 def test_cg_solve_sharded_matches_single_device(mesh, rng):
-    from tpusparse.ops.spmv import plan_matrix
-    from tpusparse.solvers.cg import cg_solve
+    from sparsela.ops.spmv import plan_matrix
+    from sparsela.solvers.cg import cg_solve
 
     csr = _spd_lap2d()
     std, st = _setup(csr, mesh)
@@ -52,7 +48,7 @@ def test_cg_solve_sharded_matches_single_device(mesh, rng):
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-5
 
     single = cg_solve(
-        plan_matrix(csr, strategy="merge", dtype=np.float32),
+        plan_matrix(csr, strategy="cusparse", dtype=np.float32),
         jnp.asarray(b), max_iters=800, tolerance=1e-6,
     )
     assert abs(int(res.iterations) - int(single.iterations)) <= 1
@@ -62,10 +58,9 @@ def test_cg_solve_sharded_matches_single_device(mesh, rng):
     assert np.isnan(hist[int(res.iterations):]).all()
 
 
-@pytest.mark.slow
 def test_cg_solve_multi_sharded_per_lane_masks(mesh, rng):
-    from tpusparse.ops.spmv import plan_matrix
-    from tpusparse.solvers.cg import cg_solve_multi
+    from sparsela.ops.spmv import plan_matrix
+    from sparsela.solvers.cg import cg_solve_multi
 
     csr = _spd_lap2d()
     std, st = _setup(csr, mesh)
@@ -84,22 +79,21 @@ def test_cg_solve_multi_sharded_per_lane_masks(mesh, rng):
     assert rel.max() < 1e-5
 
     single = cg_solve_multi(
-        plan_matrix(csr, strategy="merge", dtype=np.float32, L=L),
+        plan_matrix(csr, strategy="cusparse", dtype=np.float32, L=L),
         jnp.asarray(B), max_iters=800, tolerance=1e-6,
     )
     assert abs(int(res.iterations) - int(single.iterations)) <= 1
 
 
-@pytest.mark.slow
 def test_pcg_solve_sharded_ic0(mesh, rng):
-    from tpusparse.precond.ic0 import ic0_factorize
+    from sparsela.precond.ic0 import ic0_factorize
 
     csr = _spd_lap2d(16)
     std, st = _setup(csr, mesh)
     Lf = ic0_factorize(csr)
     lt, ut, inv_d = ps.shard_ic0_factor(Lf, st)
-    ltd = device_put_sharded_tiles(lt, mesh)
-    utd = device_put_sharded_tiles(ut, mesh)
+    ltd = sh.device_put_sharded(lt, mesh)
+    utd = sh.device_put_sharded(ut, mesh)
 
     L = 3
     B = rng.standard_normal((csr.num_rows, L)).astype(np.float32)
@@ -122,20 +116,15 @@ def test_pcg_solve_sharded_ic0(mesh, rng):
     assert int(res.iterations) < int(plain.iterations)
 
 
-@pytest.mark.slow
 def test_spai_solve_sharded(mesh, rng):
-    from tpusparse.precond.spai import spai_inverse
+    from sparsela.precond.spai import spai_inverse
 
     csr = _spd_lap2d(16)
     std, st = _setup(csr, mesh)
     M = spai_inverse(csr)
-    bounds = np.concatenate(
-        [np.asarray(st.row_start, dtype=np.int64), [st.num_rows]]
-    )
-    mt = shard_tiles(M.astype(np.float32), st.num_shards,
-                     pad_layout_cols=True, bounds=bounds,
-                     rows_per_shard=st.rows_per_shard)
-    mtd = device_put_sharded_tiles(mt, mesh)
+    mt = sh.shard_csr(M.astype(np.float32), st.num_shards,
+                      bounds=ps.shard_bounds(st))
+    mtd = sh.device_put_sharded(mt, mesh)
 
     L = 3
     B = rng.standard_normal((csr.num_rows, L)).astype(np.float32)
@@ -155,7 +144,7 @@ def test_shared_bounds_layout_agrees(mesh):
     silent bugs live)."""
     csr = _spd_lap2d(16)
     _, st = _setup(csr, mesh)
-    from tpusparse.precond.ic0 import ic0_factorize
+    from sparsela.precond.ic0 import ic0_factorize
 
     Lf = ic0_factorize(csr)
     lt, ut, inv_d = ps.shard_ic0_factor(Lf, st)

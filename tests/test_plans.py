@@ -7,15 +7,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpusparse.io import generators
-from tpusparse.io.plans import (
+from sparsela.io import generators
+from sparsela.io.plans import (
     cached_plan,
     load_plan,
     plan_cache_key,
     plan_info,
     save_plan,
 )
-from tpusparse.ops.spmv import plan_matrix, spmv, spmm
+from sparsela.ops.spmv import plan_matrix, spmv, spmm
 
 
 def _roundtrip_spmv(tmp_path, csr, dtype, **kwargs):
@@ -32,14 +32,13 @@ def _roundtrip_spmv(tmp_path, csr, dtype, **kwargs):
 
 
 @pytest.mark.parametrize("fixture,dtype,kwargs", [
-    ("rmat", np.float32, {}),                      # merge family
-    ("lap3d", np.float32, {}),                     # DIA / hybrid
-    ("lap3d", np.float64, {}),                     # native-f64 DIA
-    ("rmat", np.float64, {}),                      # double-float merge
-    ("lap2d", np.float32, {"L": 8}),               # ELL multi-RHS
+    ("rmat", np.float32, {}),                      # cuSPARSE CSR
+    ("lap3d", np.float32, {}),                     # masked DIA
+    ("lap3d", np.float64, {}),                     # f64 masked DIA
+    ("rmat", np.float64, {}),                      # f64 cuSPARSE CSR
+    ("lap2d", np.float32, {"L": 8}),               # DIA multi-RHS
     ("lap2d", np.float32, {"reorder": "auto"}),    # auto: keeps order
     ("scram", np.float32, {"reorder": "rcm"}),     # REAL ReorderedPlan
-                                                   # (kperm/kinv pytree)
 ])
 def test_roundtrip_families(tmp_path, fixture, dtype, kwargs):
     if fixture == "rmat":
@@ -47,7 +46,7 @@ def test_roundtrip_families(tmp_path, fixture, dtype, kwargs):
     elif fixture == "lap3d":
         csr = generators.make_laplacian_grid3d(12, dtype=dtype).to_csr()
     elif fixture == "scram":
-        from tpusparse.ops.reorder import permute_symmetric
+        from sparsela.ops.reorder import permute_symmetric
 
         base = generators.make_laplacian_grid2d(24, dtype=dtype).to_csr()
         csr = permute_symmetric(
@@ -59,15 +58,15 @@ def test_roundtrip_families(tmp_path, fixture, dtype, kwargs):
     assert info["class"] == type(plan).__name__
     assert info["nnz"] == csr.nnz
     if fixture == "scram":
-        from tpusparse.io.plans import load_plan
-        from tpusparse.ops.reorder import ReorderedPlan
+        from sparsela.io.plans import load_plan
+        from sparsela.ops.reorder import ReorderedPlan
 
         assert isinstance(plan, ReorderedPlan)
-        # the LOADED plan must keep the kernel-permute payloads: a
-        # load that drops them falls back to the exact XLA gather and
-        # the numeric roundtrip check alone would never notice
+        # the LOADED plan keeps its permutation and ordering tag
         loaded = load_plan(path)
-        assert loaded.kperm is not None and loaded.kinv is not None
+        assert loaded.order == plan.order
+        np.testing.assert_array_equal(np.asarray(loaded.perm),
+                                      np.asarray(plan.perm))
 
 
 def test_roundtrip_spmm(tmp_path):
@@ -88,7 +87,7 @@ def test_rejects_foreign_files(tmp_path):
 
     with open(p, "wb") as f:
         pickle.dump({"magic": "other"}, f)
-    with pytest.raises(ValueError, match="not a tpusparse plan"):
+    with pytest.raises(ValueError, match="not a sparsela plan"):
         load_plan(p)
 
 
@@ -114,8 +113,8 @@ def test_cached_plan_hits_disk(tmp_path, monkeypatch):
     import sys
 
     # the ops package re-exports the spmv FUNCTION under the submodule
-    # name, so `import tpusparse.ops.spmv as m` binds the function
-    spmv_mod = sys.modules["tpusparse.ops.spmv"]
+    # name, so `import sparsela.ops.spmv as m` binds the function
+    spmv_mod = sys.modules["sparsela.ops.spmv"]
     real = spmv_mod.plan_matrix
 
     def counting(*a, **k):

@@ -16,14 +16,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpusparse.io.market import read_market
-from tpusparse.io.realmats import (
+from sparsela.io.market import read_market
+from sparsela.io.realmats import (
     REAL_MATRICES,
     build_real,
     ensure_mtx,
     list_real,
 )
-from tpusparse.ops.spmv import plan_matrix, spmv
+from sparsela.ops.spmv import plan_matrix, spmv
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data", "real")
 
@@ -36,7 +36,7 @@ COMMITTED = ["karate", "lesmis", "gr_30_30", "Trefethen_20",
 
 def test_all_entries_build_with_published_counts():
     # build_real asserts (shape, nnz) against the published stats;
-    # corpus size is a round-5 CI floor (VERDICT r4 item 4: >= 35)
+    # corpus size floor: at least 35 entries
     assert len(list_real()) >= 35
     for name in list_real():
         if name in ("mycielskian14", "mycielskian15"):
@@ -82,7 +82,7 @@ def test_auto_plan_golden(name):
 def test_cg_iteration_parity_vs_scipy(name):
     """SPD entries solve with CG; iteration count matches a numpy
     oracle with the same recurrence to ±1."""
-    from tpusparse.solvers.cg import cg_solve
+    from sparsela.solvers.cg import cg_solve
 
     csr = build_real(name).to_csr()
     S = csr.to_scipy()
@@ -115,11 +115,10 @@ def test_cg_iteration_parity_vs_scipy(name):
 
 
 # ---------------------------------------------------------------------------
-# The real-matrix battery as a CI gate (VERDICT r4 item 4): EVERY
-# entry through parse -> AUTO plan -> golden SpMV, and CG iteration
-# parity on every SPD entry — the pytest mirror of
-# scripts/r4_real_battery.py, split by published nnz so the fast tier
-# stays fast (big builds ride the slow tier).
+# The real-matrix battery as a CI gate: EVERY entry through parse ->
+# AUTO plan -> golden SpMV, and CG iteration parity on every SPD entry,
+# split by published nnz so the fast tier stays fast (big builds ride
+# the slow tier).
 # ---------------------------------------------------------------------------
 
 def _published_nnz(name):
@@ -147,7 +146,7 @@ def _battery_golden(name):
 
 
 def _battery_cg_parity(name):
-    from tpusparse.solvers.cg import cg_solve
+    from sparsela.solvers.cg import cg_solve
 
     csr = build_real(name).to_csr()
     S = csr.to_scipy()
@@ -210,7 +209,7 @@ def test_cli_real_flag(capsys):
     """`--real NAME` feeds any subcommand from the offline
     reconstruction registry (reference: the UFL corpus feeds every
     driver via --mtx, eval_csrmv.sh:14-17)."""
-    from tpusparse.bench.run import main as cli_main
+    from sparsela.bench.run import main as cli_main
 
     cli_main(["stats", "--real", "karate", "--quiet"])
     out = capsys.readouterr().out.strip()

@@ -1,10 +1,10 @@
 """Symmetric relabeling + RCM reordering (ops/reorder.py).
 
 Reference capability: ``CooMatrix::InitCsrRelabel``
-(``/root/reference/sparse_matrix.h:184-207``). The RCM pre-order is
-the TPU-side payoff: a scrambled-banded matrix recovers a
-low-bandwidth form that the partition planner maps to cheap
-contiguous windows; CG trajectories are permutation-invariant.
+(``sparse_matrix.h:184-207``). The RCM pre-order
+recovers a low-bandwidth form from a scrambled-banded matrix (local
+gathers of x, and the DIA path again where diagonals reappear); CG
+trajectories are permutation-invariant.
 """
 
 import numpy as np
@@ -12,8 +12,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpusparse.io import generators
-from tpusparse.ops.reorder import (
+from sparsela.io import generators
+from sparsela.ops.reorder import (
     ReorderedPlan,
     bandwidth,
     degree_order,
@@ -21,8 +21,8 @@ from tpusparse.ops.reorder import (
     plan_reorder,
     rcm_order,
 )
-from tpusparse.ops.spmv import plan_matrix, spmm, spmv
-from tpusparse.ops.reference import spmv_numpy
+from sparsela.ops.spmv import plan_matrix, spmm, spmv
+from sparsela.ops.reference import spmv_numpy
 
 
 def _scrambled_lap2d(width=40, seed=7):
@@ -100,36 +100,29 @@ def test_auto_gate():
         ReorderedPlan)
 
 
-def test_auto_gate_secondary_score_path():
-    """Hub-pinned max bandwidth fails the primary gate, but the mean-
-    bandwidth prefilter + chooser-score comparison still fires when the
-    bulk localizes: sparse R-MAT (edge factor 4) is the measured case —
-    RCM leaves the max bandwidth at ~half of n (hub rows) yet doubles
-    the partition chooser's occupancy-over-cost score (gain 2.03x,
-    reorder.py's calibration table)."""
-    from tpusparse.ops.reorder import RCM_GAIN, RCM_SLACK
+def test_auto_gate_keeps_hub_pinned_order():
+    """Hub rows pin the max bandwidth, so RCM cannot pass the
+    bandwidth gate on sparse R-MAT, and 'auto' never picks the degree
+    order: the plan stays in the native order."""
+    from sparsela.ops.reorder import RCM_GAIN, RCM_SLACK
 
-    scr = generators.make_rmat(16, edge_factor=4, seed=1).to_csr()
-    # primary (max-bandwidth) gate must NOT be able to fire
+    scr = generators.make_rmat(14, edge_factor=4, seed=1).to_csr()
     rec = permute_symmetric(scr, rcm_order(scr))
     assert bandwidth(rec) + RCM_SLACK > RCM_GAIN * bandwidth(scr)
-    # ...yet auto reorders on the secondary score path — and prefers
-    # degree over RCM inside the score proxy's resolution (on-chip:
-    # 78.1 vs 87.1-95.4 us, RESULTS.md round-4 reorder A/B)
     A = plan_matrix(scr, dtype=np.float32, reorder="auto")
-    assert isinstance(A, ReorderedPlan) and A.order == "degree"
+    assert not isinstance(A, ReorderedPlan)
 
 
 def test_degree_order_spmv_parity(rng):
     """order='degree' clusters hot columns and still computes the
-    original-coordinate y = A x (round-4 gather-span lever)."""
-    from tpusparse.ops.spmv import plan_kind
+    original-coordinate y = A x."""
+    from sparsela.ops.spmv import plan_kind
 
     csr = generators.make_rmat(12, dtype=np.float32).to_csr()
-    A = plan_reorder(csr, strategy="merge", dtype=np.float32,
+    A = plan_reorder(csr, strategy="cusparse", dtype=np.float32,
                      order="degree")
     assert isinstance(A, ReorderedPlan) and A.order == "degree"
-    assert plan_kind(A) == "degree+merge"
+    assert plan_kind(A) == "degree+cusparse"
     x = rng.standard_normal(csr.num_cols)
     golden = spmv_numpy(csr, x)
     y = np.asarray(spmv(A, jnp.asarray(x.astype(np.float32))))
@@ -137,24 +130,18 @@ def test_degree_order_spmv_parity(rng):
     np.testing.assert_allclose(y / scale, golden / scale, atol=5e-5)
 
 
-def test_degree_order_reduces_span():
-    """The point of the ordering: the partition's mean column span
-    (the kernel's gather trip statistic) shrinks on power-law
-    patterns (host stats; on-chip A/B in RESULTS.md)."""
-    from tpusparse.formats.tiles import choose_partition
+def test_degree_order_hot_columns_first():
+    """The ordering itself: column degrees are non-increasing in the
+    permuted matrix, and a uniform-degree matrix (ring: every column
+    degree 2) comes back in its native order — the stable sort of
+    equal keys."""
+    from sparsela.formats.coo import CooMatrix
+    from sparsela.formats.csr import CsrMatrix
 
-    csr = generators.make_rmat(14, dtype=np.float32).to_csr()
-    t_nat = choose_partition(csr)
+    csr = generators.make_rmat(12, dtype=np.float32).to_csr()
     rec = permute_symmetric(csr, degree_order(csr))
-    t_deg = choose_partition(rec)
-    span_nat = float(np.asarray(t_nat.col_span).mean())
-    span_deg = float(np.asarray(t_deg.col_span).mean())
-    assert span_deg < 0.85 * span_nat
-    # a genuinely uniform-degree matrix (ring: every column degree 2)
-    # comes back in its native order — the stable sort of equal keys
-    from tpusparse.formats.coo import CooMatrix
-    from tpusparse.formats.csr import CsrMatrix
-
+    deg = np.bincount(np.asarray(rec.col_indices), minlength=rec.num_cols)
+    assert (np.diff(deg) <= 0).all()
     m = 2048
     i = np.arange(m, dtype=np.int64)
     ring = CsrMatrix.from_coo(CooMatrix(
@@ -165,44 +152,10 @@ def test_degree_order_reduces_span():
     np.testing.assert_array_equal(degree_order(ring), np.arange(m))
 
 
-def test_degree_auto_dia_guard():
-    """auto never degree-permutes a DIA-eligible matrix even when the
-    column degrees are concentrated: reordering would scramble the
-    diagonal structure the planner exploits."""
-    from tpusparse.ops.reorder import _degree_concentration, _dia_eligible
-    from tpusparse.formats.coo import CooMatrix
-    from tpusparse.formats.csr import CsrMatrix
-
-    # tridiagonal operator (DIA-eligible) + two hub columns carrying
-    # enough nnz to clear the concentration prefilter; scipy's
-    # coo->csr conversion sums the duplicate (0,0)/(1,1)-area entries
-    import scipy.sparse as sp
-
-    n = 4096
-    i = np.arange(n, dtype=np.int64)
-    rows = np.concatenate([i, i[:-1], i[1:], i, i])
-    cols = np.concatenate([i, i[1:], i[:-1],
-                           np.zeros(n, np.int64),
-                           np.full(n, 1, np.int64)])
-    vals = np.concatenate([np.full(n, 4.0), np.full(n - 1, -1.0),
-                           np.full(n - 1, -1.0), np.full(n, 0.01),
-                           np.full(n, 0.01)]).astype(np.float32)
-    S = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
-    S.sum_duplicates()
-    coo = S.tocoo()
-    csr = CsrMatrix.from_coo(CooMatrix(
-        n, n, coo.row.astype(np.int64), coo.col.astype(np.int64),
-        coo.data.astype(np.float32)))
-    assert _degree_concentration(csr) >= 0.25
-    assert _dia_eligible(csr)
-    A = plan_matrix(csr, dtype=np.float32, reorder="auto")
-    assert not (isinstance(A, ReorderedPlan) and A.order == "degree")
-
-
 def test_cg_iteration_parity_under_reorder(rng):
     """P A P^T is similar to A: CG converges in the same iterations
     (±2 for rounding) and to the same solution."""
-    from tpusparse.solvers.cg import cg_solve
+    from sparsela.solvers.cg import cg_solve
 
     csr = generators.make_laplacian_grid2d(24, dtype=np.float64
                                            ).to_csr()
@@ -210,9 +163,9 @@ def test_cg_iteration_parity_under_reorder(rng):
     scr = permute_symmetric(csr, scram)
     b = rng.standard_normal(scr.num_rows).astype(np.float32)
 
-    A0 = plan_matrix(scr, strategy="merge", dtype=np.float32)
+    A0 = plan_matrix(scr, strategy="cusparse", dtype=np.float32)
     r0 = cg_solve(A0, jnp.asarray(b), max_iters=2000, tolerance=1e-5)
-    A1 = plan_reorder(scr, strategy="merge", dtype=np.float32,
+    A1 = plan_reorder(scr, strategy="cusparse", dtype=np.float32,
                       order="rcm")
     r1 = cg_solve(A1, jnp.asarray(b), max_iters=2000, tolerance=1e-5)
     assert bool(r0.converged) and bool(r1.converged)
@@ -223,29 +176,25 @@ def test_cg_iteration_parity_under_reorder(rng):
     assert rel < 1e-4
 
 
-def test_partition_quality_improves():
-    """The point of the exercise: the planner's partition on the
-    RCM-recovered order packs better / spans narrower than on the
-    scrambled order."""
-    from tpusparse.formats.tiles import choose_partition
+def test_rcm_restores_dia_route():
+    """The point of the exercise on the card: a scrambled stencil plans
+    onto the general CSR route, and its RCM-recovered order brings the
+    diagonals back to the DIA path (plan_kind 'rcm+dia...')."""
+    from sparsela.ops.spmv import plan_kind
 
     scr, _ = _scrambled_lap2d(64)
-    t_scr = choose_partition(scr)
-    rec = permute_symmetric(scr, rcm_order(scr))
-    t_rec = choose_partition(rec)
-    cost_scr = t_scr.col_window // 128 * (1 / max(t_scr.occupancy, .01))
-    cost_rec = t_rec.col_window // 128 * (1 / max(t_rec.occupancy, .01))
-    assert cost_rec < 0.5 * cost_scr
+    assert plan_kind(plan_matrix(scr, dtype=np.float32)) == "cusparse"
+    A = plan_matrix(scr, dtype=np.float32, reorder="rcm")
+    assert plan_kind(A).startswith("rcm+")
 
 
-@pytest.mark.slow
 def test_cg_multi_reordered_fast_path(rng):
     """cg_solve_multi on a ReorderedPlan solves in the permuted space
     (one gather in, one out) and returns original-order solutions."""
-    from tpusparse.solvers.cg import cg_solve_multi
+    from sparsela.solvers.cg import cg_solve_multi
 
     scr, _ = _scrambled_lap2d(20, seed=9)
-    A = plan_reorder(scr, strategy="merge", dtype=np.float32,
+    A = plan_reorder(scr, strategy="cusparse", dtype=np.float32,
                      order="rcm")
     B = rng.standard_normal((scr.num_rows, 4)).astype(np.float32)
     res = cg_solve_multi(A, jnp.asarray(B), max_iters=2000,
@@ -256,14 +205,13 @@ def test_cg_multi_reordered_fast_path(rng):
     assert rel < 1e-4
 
 
-@pytest.mark.slow
 def test_pcg_reordered_plan_dispatch_route(rng):
     """Preconditioned solvers take the dispatch route for a
     ReorderedPlan (the preconditioner lives in original coordinates,
     which stays a valid SPD preconditioner): multicg's --reorder
     combination converges."""
-    from tpusparse.precond.ic0 import ic0_factorize
-    from tpusparse.solvers.pcg import (
+    from sparsela.precond.ic0 import ic0_factorize
+    from sparsela.solvers.pcg import (
         make_ic0_preconditioner,
         pcg_solve_multi,
     )
@@ -271,7 +219,7 @@ def test_pcg_reordered_plan_dispatch_route(rng):
     csr = generators.make_laplacian_grid2d(16, dtype=np.float64).to_csr()
     scram = np.random.default_rng(4).permutation(csr.num_rows)
     scr = permute_symmetric(csr, scram)
-    A = plan_reorder(scr, strategy="merge", dtype=np.float32,
+    A = plan_reorder(scr, strategy="cusparse", dtype=np.float32,
                      order="rcm")
     Lf = ic0_factorize(scr)
     prec = make_ic0_preconditioner(Lf, sweeps=40)

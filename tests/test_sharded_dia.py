@@ -13,11 +13,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from tpusparse.formats.csr import CsrMatrix
-from tpusparse.formats.dia import partition_dia, select_diagonals
-from tpusparse.io import generators
-from tpusparse.parallel import sharded as sh
-from tpusparse.parallel import sharded_dia as sd
+from sparsela.formats.csr import CsrMatrix
+from sparsela.formats.dia import partition_dia, select_diagonals
+from sparsela.io import generators
+from sparsela.parallel import sharded as sh
+from sparsela.parallel import sharded_dia as sd
 
 
 @pytest.fixture(scope="module")
@@ -77,8 +77,8 @@ def test_spmm_sharded_parity(mesh, rng):
 
 
 def test_cg_solve_dia_sharded_iteration_parity(mesh, rng):
-    from tpusparse.formats.dia import to_device_dia
-    from tpusparse.solvers.cg import cg_solve
+    from sparsela.formats.dia import to_device_dia
+    from sparsela.solvers.cg import cg_solve
 
     csr = generators.make_laplacian_grid2d(20, dtype=np.float64).to_csr()
     std, s = _setup(csr, mesh)
@@ -101,8 +101,8 @@ def test_cg_solve_dia_sharded_iteration_parity(mesh, rng):
 
 
 def test_cg_solve_multi_dia_sharded_masks(mesh, rng):
-    from tpusparse.formats.dia import to_device_dia
-    from tpusparse.solvers.cg import cg_solve_multi
+    from sparsela.formats.dia import to_device_dia
+    from sparsela.solvers.cg import cg_solve_multi
 
     csr = generators.make_laplacian_grid2d(20, dtype=np.float64).to_csr()
     std, s = _setup(csr, mesh)
@@ -126,7 +126,7 @@ def test_cg_solve_multi_dia_sharded_masks(mesh, rng):
 
 
 def test_masked_sharded_dia_matches_plane_form(mesh, rng):
-    """Round 5 (VERDICT r4 item 6b): the constant-coefficient bitmask
+    """The constant-coefficient bitmask
     sharded form — values identical to the plane form, solver parity,
     non-maskable operators rejected."""
     csr = generators.make_laplacian_grid2d(20,
@@ -158,10 +158,10 @@ def test_masked_sharded_dia_matches_plane_form(mesh, rng):
 
 
 def test_fp64_sharded_dia_cg(mesh, rng):
-    """Round 5 (item 6a): genuine XLA f64 halo-DIA CG across the mesh,
+    """Genuine XLA f64 halo-DIA CG across the mesh,
     iteration parity with the single-device fp64 solve."""
-    from tpusparse.formats.dia import to_device_dia
-    from tpusparse.solvers.cg import cg_solve
+    from sparsela.formats.dia import to_device_dia
+    from sparsela.solvers.cg import cg_solve
 
     csr = generators.make_laplacian_grid2d(18,
                                            dtype=np.float64).to_csr()

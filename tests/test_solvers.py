@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpusparse.io import generators
-from tpusparse.solvers.cg import cg_solve, cg_solve_multi
+from sparsela.io import generators
+from sparsela.solvers.cg import cg_solve, cg_solve_multi
 
 
 def numpy_cg(A, b, max_iters, tol):
@@ -134,8 +134,8 @@ def test_cg_jits():
 
 class TestIterativeRefinement:
     def test_single_rhs_reaches_fp64_accuracy(self, rng):
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.refine import cg_solve_refined
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.refine import cg_solve_refined
 
         csr = generators.make_laplacian_grid2d(16, dtype=np.float64).to_csr()
         A32 = plan_matrix(csr, dtype=np.float32)
@@ -149,12 +149,12 @@ class TestIterativeRefinement:
         assert int(res.refinements) <= 6
 
     def test_multi_rhs_reaches_fp64_accuracy(self, rng):
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.refine import cg_solve_multi_refined
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.refine import cg_solve_multi_refined
 
         csr = generators.make_laplacian_grid3d(8, dtype=np.float64).to_csr()
         A32 = plan_matrix(csr, dtype=np.float32, L=8)
-        A64 = plan_matrix(csr, dtype=np.float64, L=8)  # double-float plan
+        A64 = plan_matrix(csr, dtype=np.float64, L=8)  # IEEE f64 plan
         B = rng.standard_normal((csr.num_rows, 8))
         res = cg_solve_multi_refined(A32, A64, jnp.asarray(B))
         assert float(np.max(np.asarray(res.residual))) < 1e-11
@@ -164,11 +164,11 @@ class TestIterativeRefinement:
 
     def test_requires_x64(self):
         # guarded: without x64 the fp64 updates silently truncate
-        from tpusparse.solvers.refine import cg_solve_refined
+        from sparsela.solvers.refine import cg_solve_refined
         import jax
 
         csr = generators.make_laplacian_grid2d(4, dtype=np.float64).to_csr()
-        from tpusparse.ops.spmv import plan_matrix
+        from sparsela.ops.spmv import plan_matrix
 
         A32 = plan_matrix(csr, dtype=np.float32)
         with jax.enable_x64(False):
@@ -179,8 +179,8 @@ class TestIterativeRefinement:
 class TestImplicitDiff:
     def test_grad_through_cg_matches_analytic(self, rng):
         import jax
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.implicit import make_cg_solver
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.implicit import make_cg_solver
 
         csr = generators.make_laplacian_grid2d(8, dtype=np.float64).to_csr()
         A = plan_matrix(csr, strategy="reference", dtype=np.float64)
@@ -200,8 +200,8 @@ class TestImplicitDiff:
 
     def test_grad_composes_with_jit_and_kernel_plan(self, rng):
         import jax
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.implicit import make_cg_solver_multi
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.implicit import make_cg_solver_multi
 
         csr = generators.make_laplacian_grid2d(8, dtype=np.float64).to_csr()
         A = plan_matrix(csr.astype(np.float32), dtype=np.float32, L=4)
@@ -216,16 +216,15 @@ class TestImplicitDiff:
 
 class TestBakedDispatch:
     """The baked solver path (plan closed over the jitted solve as a
-    compile-time constant — measured 8.2x/iter on the DIA/Hybrid CG
-    loop, see solvers.cg._plan_bakeable) must agree exactly with the
-    argument dispatch and cache one executable per (RHS shape, solver
-    statics) on the plan object."""
+    compile-time constant, see solvers.cg._plan_bakeable) must agree
+    exactly with the argument dispatch and cache one executable per
+    (RHS shape, solver statics) on the plan object."""
 
     def _dia_plan(self, csr):
-        from tpusparse.ops.spmv import plan_matrix
+        from sparsela.ops.spmv import plan_matrix
 
         A = plan_matrix(csr, dtype=np.float32)
-        from tpusparse.solvers.cg import _plan_bakeable
+        from sparsela.solvers.cg import _plan_bakeable
 
         assert _plan_bakeable(A)  # stencil -> Hybrid/DIA
         return A
@@ -240,7 +239,7 @@ class TestBakedDispatch:
         np.testing.assert_allclose(
             np.asarray(r_arg.x), np.asarray(r_bak.x), rtol=1e-6, atol=1e-6
         )
-        cache = A.__dict__["_tpusparse_baked"]
+        cache = A.__dict__["_sparsela_baked"]
         assert len(cache) == 1
         # new b, same shape: reuse; changed statics: new entry
         b2 = rng.standard_normal(csr.num_rows).astype(np.float32)
@@ -260,22 +259,22 @@ class TestBakedDispatch:
         np.testing.assert_allclose(
             np.asarray(r_arg.x), np.asarray(r_bak.x), rtol=1e-6, atol=1e-6
         )
-        assert "_tpusparse_baked" in A.__dict__
+        assert "_sparsela_baked" in A.__dict__
 
     def test_gather_plans_not_baked(self, rng):
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.cg import _plan_bakeable
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.cg import _plan_bakeable
 
         csr = generators.make_laplacian_grid2d(10, dtype=np.float32).to_csr()
-        Am = plan_matrix(csr, dtype=np.float32, strategy="merge")
+        Am = plan_matrix(csr, dtype=np.float32, strategy="cusparse")
         assert not _plan_bakeable(Am)
         b = rng.standard_normal(csr.num_rows).astype(np.float32)
         cg_solve(Am, b, max_iters=200, tolerance=1e-5)
-        assert "_tpusparse_baked" not in Am.__dict__
+        assert "_sparsela_baked" not in Am.__dict__
 
     def test_size_gate(self):
-        from tpusparse.solvers import cg as cgmod
-        from tpusparse.ops.spmv import plan_matrix
+        from sparsela.solvers import cg as cgmod
+        from sparsela.ops.spmv import plan_matrix
 
         csr = generators.make_laplacian_grid2d(12, dtype=np.float32).to_csr()
         A = plan_matrix(csr, dtype=np.float32)
@@ -288,8 +287,8 @@ class TestBakedDispatch:
             cgmod.BAKE_MAX_BYTES = old
 
     def test_baked_reordered_plan(self, rng):
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.cg import _plan_bakeable
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.cg import _plan_bakeable
 
         csr = generators.make_laplacian_grid2d(12, dtype=np.float32).to_csr()
         Ar = plan_matrix(csr, dtype=np.float32, reorder="rcm")
@@ -306,8 +305,8 @@ class TestBakedDispatch:
         agree with the generic (n, L) path run on the raw CSR: same
         solution, iteration count within 1 (fp reduction order of the
         dots differs), converged lanes all true."""
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.cg import _pure_dia_of
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.cg import _pure_dia_of
 
         csr = generators.make_laplacian_grid3d(6, dtype=np.float32).to_csr()
         A = plan_matrix(csr, dtype=np.float32, L=32)
@@ -327,78 +326,17 @@ class TestBakedDispatch:
         hg = np.asarray(r_g.history)[:it]
         np.testing.assert_allclose(ht, hg, rtol=0.3)
 
-    def test_stream_plan_transposed_path_matches_generic(
-        self, rng, monkeypatch
-    ):
-        """Stream-plan (DiaStreamDevice) multi-RHS solves take the
-        transposed fast path through spmm_dia_stream_t and must agree
-        with the generic reference-strategy path."""
-        import importlib
-
-        spmv_mod = importlib.import_module("tpusparse.ops.spmv")
-        from tpusparse.kernels.dia_stream import DiaStreamDevice
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.cg import _transposed_matmat_of
-
-        monkeypatch.setattr(spmv_mod, "DIA_STREAM_MIN_BYTES", 1024)
-        csr = generators.make_laplacian_grid3d(6, dtype=np.float32).to_csr()
-        A = plan_matrix(csr, dtype=np.float32, L=16)
-        assert isinstance(A.dia, DiaStreamDevice)
-        assert _transposed_matmat_of(A)[0] is not None
-        B = rng.standard_normal((csr.num_rows, 16)).astype(np.float32)
-        r_t = cg_solve_multi(A, B, max_iters=600, tolerance=1e-5)
-        A_ref = plan_matrix(csr, dtype=np.float32, strategy="reference")
-        r_g = cg_solve_multi(A_ref, B, max_iters=600, tolerance=1e-5)
-        assert abs(int(r_t.iterations) - int(r_g.iterations)) <= 1
-        assert bool(np.all(np.asarray(r_t.converged)))
-        np.testing.assert_allclose(
-            np.asarray(r_t.x), np.asarray(r_g.x), rtol=2e-4, atol=2e-4
-        )
-
-    def test_nmajor_plan_interleaved_path_matches_generic(self, rng):
-        """Explicit n-major plans (strategy='nmajor') take the
-        interleaved-state fast path (state in the kernel's guarded
-        flat layout, packed once per solve) and must agree with the
-        generic reference-strategy path — including at an L that pads
-        up to the plan's lane count."""
-        from tpusparse.kernels.dia_nmajor import DiaNMajorDevice
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.cg import _interleaved_plan_of
-
-        csr = generators.make_laplacian_grid3d(6, dtype=np.float32).to_csr()
-        A_ref = plan_matrix(csr, dtype=np.float32, strategy="reference")
-        for L in (16, 13):  # exact lane count and padded (13 -> 16)
-            A = plan_matrix(csr, dtype=np.float32, L=L,
-                            strategy="nmajor")
-            assert isinstance(A.dia, DiaNMajorDevice)
-            assert _interleaved_plan_of(A) is not None
-            B = rng.standard_normal((csr.num_rows, L)).astype(np.float32)
-            r_t = cg_solve_multi(A, B, max_iters=600, tolerance=1e-5)
-            r_g = cg_solve_multi(A_ref, B, max_iters=600, tolerance=1e-5)
-            assert abs(int(r_t.iterations) - int(r_g.iterations)) <= 1
-            assert np.asarray(r_t.converged).shape == (L,)
-            assert bool(np.all(np.asarray(r_t.converged)))
-            np.testing.assert_allclose(
-                np.asarray(r_t.x), np.asarray(r_g.x), rtol=2e-4, atol=2e-4
-            )
-            it = min(int(r_t.iterations), int(r_g.iterations)) - 1
-            np.testing.assert_allclose(
-                np.asarray(r_t.history)[:it],
-                np.asarray(r_g.history)[:it], rtol=0.3,
-            )
-
     @pytest.mark.slow
     def test_hybrid_with_rest_keeps_generic_path(self, rng):
         """Hybrid plans with a scattered remainder KEEP the generic
-        (n, L) path — measured 4% worse transposed (the gather-kernel
-        remainder dominates; RESULTS session 9). The solve itself must
-        still match the reference strategy."""
+        (n, L) path (the remainder's CSR SpMM takes (n, L) operands).
+        The solve itself must still match the reference strategy."""
         import scipy.sparse as sp
 
-        from tpusparse.formats.csr import CsrMatrix
-        from tpusparse.ops.hybrid import HybridPlan
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.cg import _transposed_matmat_of
+        from sparsela.formats.csr import CsrMatrix
+        from sparsela.ops.hybrid import HybridPlan
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.solvers.cg import _transposed_matmat_of
 
         n = 3000
         T = sp.diags(
@@ -411,7 +349,7 @@ class TestBakedDispatch:
         csr = CsrMatrix.from_scipy(S)
         A = plan_matrix(csr, dtype=np.float32, L=16)
         assert isinstance(A, HybridPlan) and A.rest is not None
-        assert _transposed_matmat_of(A)[0] is None
+        assert _transposed_matmat_of(A) is None
         B = rng.standard_normal((n, 16)).astype(np.float32)
         r_t = cg_solve_multi(A, B, max_iters=600, tolerance=1e-5)
         A_ref = plan_matrix(csr, dtype=np.float32, strategy="reference")
@@ -422,39 +360,11 @@ class TestBakedDispatch:
             np.asarray(r_t.x), np.asarray(r_g.x), rtol=2e-4, atol=2e-4
         )
 
-    def test_df_stream_plan_transposed_path_accuracy(
-        self, rng, monkeypatch
-    ):
-        """fp64 stream plans (double-float kernel) ride the transposed
-        path through spmm_dia_stream_df_t; the solve must hit the df
-        plan's documented ~1e-12 accuracy vs a dense solve."""
-        import importlib
-
-        spmv_mod = importlib.import_module("tpusparse.ops.spmv")
-        from tpusparse.kernels.dia_stream import DiaStreamDFDevice
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.solvers.cg import _transposed_matmat_of
-
-        monkeypatch.setattr(spmv_mod, "DIA_STREAM_F64_MIN_BYTES", 1024)
-        csr = generators.make_laplacian_grid2d(10, dtype=np.float64).to_csr()
-        A = plan_matrix(csr, dtype=np.float64, L=4)
-        assert isinstance(A.dia, DiaStreamDFDevice)
-        assert _transposed_matmat_of(A)[0] is not None
-        B = rng.standard_normal((csr.num_rows, 4))
-        r = cg_solve_multi(A, B, max_iters=600, tolerance=1e-10)
-        assert bool(np.all(np.asarray(r.converged)))
-        x_ref = np.stack([
-            np.linalg.solve(np.asarray(csr.to_scipy().todense()), B[:, j])
-            for j in range(4)
-        ], axis=1)
-        np.testing.assert_allclose(np.asarray(r.x), x_ref, rtol=1e-6,
-                                   atol=1e-8)
-
     def test_fp64_transposed_path_accuracy(self, rng):
-        """fp64 multi-RHS also rides the transposed fast path (4.7x
-        measured; dots are native lane-wise sums on both paths) and
-        must hit full fp64 accuracy vs a dense solve."""
-        from tpusparse.ops.spmv import plan_matrix
+        """fp64 multi-RHS also rides the transposed path (dots are
+        plain column sums on both paths) and must hit full fp64
+        accuracy vs a dense solve."""
+        from sparsela.ops.spmv import plan_matrix
 
         csr = generators.make_laplacian_grid2d(10, dtype=np.float64).to_csr()
         A = plan_matrix(csr, dtype=np.float64, L=8)
@@ -474,8 +384,8 @@ class TestExactPcgReferenceParity:
     PCG using the SAME factor to ±1 iteration — the reference's PCG
     semantics (incomplete_cholesky.hpp:36-199, exact row-sequential
     substitution, cg/incomplete_cholesky_decomp.hpp:246-341). The
-    Jacobi-sweeps preconditioner is the measured perf default; its
-    iteration delta vs exact mode is recorded in RESULTS.md."""
+    Jacobi-sweeps preconditioner is the default; exact mode is the
+    parity oracle."""
 
     @staticmethod
     def _host_pcg_iters(S, Lf, b, tol, max_iters=2000):
@@ -522,9 +432,9 @@ class TestExactPcgReferenceParity:
         (lambda: generators.make_fem2d(220, seed=5).to_csr(), 2),
     ])
     def test_exact_pcg_iteration_parity(self, make, slack):
-        from tpusparse.ops.spmv import plan_matrix
-        from tpusparse.precond.ic0 import ic0_factorize
-        from tpusparse.solvers.pcg import (
+        from sparsela.ops.spmv import plan_matrix
+        from sparsela.precond.ic0 import ic0_factorize
+        from sparsela.solvers.pcg import (
             make_exact_ic0_preconditioner,
             pcg_solve_multi,
         )
